@@ -1,4 +1,4 @@
-"""Diagnose the overiva-gauss c64 parity floor (VERDICT r3 item 1).
+"""Diagnose the overiva-gauss c64 parity floor.
 
 Runs the NumPy oracle at c64 with SELECTED stages promoted to f64, to find
 which per-epoch rounding source drives the 0.110 dB f64-vs-c64 floor:
@@ -20,11 +20,11 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import overiva_tpu.oracle as oracle
-from overiva_tpu.metrics import bss_eval_sources
-from overiva_tpu.oracle.models import EPS, REL_EPS
-from overiva_tpu.oracle.projection import projection_back
-from overiva_tpu.sim import (
+import overiva_jax.oracle as oracle
+from overiva_jax.metrics import bss_eval_sources
+from overiva_jax.oracle.models import EPS, REL_EPS
+from overiva_jax.oracle.projection import projection_back
+from overiva_jax.sim import (
     ShoeBox,
     circular_mic_array,
     semi_circle_layout,

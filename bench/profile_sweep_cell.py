@@ -31,8 +31,8 @@ from mbss_sim import (  # noqa: E402
     stft_pad,
 )
 
-from overiva_tpu import api  # noqa: E402
-from overiva_tpu.registry import get_algorithm  # noqa: E402
+from overiva_jax import api  # noqa: E402
+from overiva_jax.registry import get_algorithm  # noqa: E402
 
 
 def main():

@@ -16,7 +16,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from mbss_sim import DEFAULT_CONFIG, simulate_instance, stft_pad  # noqa: E402
 
-from overiva_tpu import api  # noqa: E402
+from overiva_jax import api  # noqa: E402
 
 CASES = [
     # (n_mics, n_src, algo-params, batch_fn, single_fn)

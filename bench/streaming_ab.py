@@ -9,26 +9,23 @@ This is the measurement behind docs/DESIGN.md §8 "streaming" (seeds
 3.2/7.8/2.8 dB) and the OnlineTISS default choices (solve > steer,
 taps=4 > 6, shared forget ~= longer tap_forget).
 
-    OVERIVA_FORCE_CPU=1 python bench/streaming_ab.py   # ~15 min CPU
+    python bench/streaming_ab.py
 """
 import sys
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parent.parent))
-from overiva_tpu.api import (
+from overiva_jax.api import (
     OnlineAuxIVAISS,
     OnlineTISS,
     OnlineWPE,
     stft_analysis,
 )
-from overiva_tpu.metrics.bss_eval import bss_eval_sources
-from overiva_tpu.oracle import hann, stft_pad, synthesis_window
-from overiva_tpu.sim import ShoeBox, circular_mic_array, semi_circle_layout
-from overiva_tpu.sim.sources import speech_like
+from overiva_jax.metrics.bss_eval import bss_eval_sources
+from overiva_jax.oracle import hann, stft_pad, synthesis_window
+from overiva_jax.sim import ShoeBox, circular_mic_array, semi_circle_layout
+from overiva_jax.sim.sources import speech_like
 
 FS, DUR, NFFT, BLK, RT60 = 16000, 10.0, 512, 16, 0.35
 HOP = NFFT // 2

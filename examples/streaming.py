@@ -19,21 +19,14 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from overiva_tpu.utils.cache import enable_persistent_cache
+from overiva_jax.utils.cache import enable_persistent_cache
 
 enable_persistent_cache()
 
-import os
-
-if os.environ.get("OVERIVA_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
-from overiva_tpu.api import OnlineAuxIVAISS, stft_analysis
-from overiva_tpu.metrics import bss_eval_sources
-from overiva_tpu.oracle import hann, stft_pad, synthesis_window
-from overiva_tpu.sim import ShoeBox, circular_mic_array, semi_circle_layout, speech_like
+from overiva_jax.api import OnlineAuxIVAISS, stft_analysis
+from overiva_jax.metrics import bss_eval_sources
+from overiva_jax.oracle import hann, stft_pad, synthesis_window
+from overiva_jax.sim import ShoeBox, circular_mic_array, semi_circle_layout, speech_like
 
 
 def main(argv=None):
@@ -88,7 +81,7 @@ def main(argv=None):
         return _run_fused(args, mix, refs, hop)
 
     if args.tiss:
-        from overiva_tpu.api import OnlineTISS
+        from overiva_jax.api import OnlineTISS
 
         sep = OnlineTISS(
             n_freq=X.shape[1], n_chan=M, taps=args.tiss, delay=2,
@@ -100,7 +93,7 @@ def main(argv=None):
         )
     drv = None
     if args.wpe:
-        from overiva_tpu.api import OnlineWPE
+        from overiva_jax.api import OnlineWPE
 
         drv = OnlineWPE(n_freq=X.shape[1], n_chan=M, taps=args.wpe, delay=2)
 
@@ -141,7 +134,7 @@ def main(argv=None):
 def _run_fused(args, mix, refs, hop):
     """Serving-tier streaming: raw sample blocks through ONE fused
     executable (serving.StreamingSeparator), per-block latency report."""
-    from overiva_tpu.serving import StreamingSeparator
+    from overiva_jax.serving import StreamingSeparator
 
     M = args.mics
     algo = "online-tiss" if args.tiss else "online-iss"

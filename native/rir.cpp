@@ -2,9 +2,9 @@
 //
 // Native (C++) implementation of the simulator hot path, mirroring the role
 // of pyroomacoustics' compiled `libroom` extension in the reference stack
-// (SURVEY.md §2.2): the separation math runs on the TPU, but RIR synthesis
+// (SURVEY.md §2.2): the separation math runs on the accelerator, but RIR synthesis
 // is host-side and dominates sweep setup time. Same math as the NumPy
-// fallback in overiva_tpu/sim/room.py: images along axis d at
+// fallback in overiva_jax/sim/room.py: images along axis d at
 // (-1)^p s_d + 2 n L_d carrying 2|n| (p=0) or |2n-1| (p=1) reflections,
 // amplitude rho^order / (4 pi dist), Hann-windowed-sinc fractional delay.
 //

@@ -1,0 +1,108 @@
+"""ctypes loader/builder for the native C++ RIR engine (native/rir.cpp).
+
+Builds the shared library on first use with g++, validated by a sha256
+sidecar of the source (so a stale or foreign-host .so is never loaded),
+and falls back silently to the NumPy path when no toolchain is available.
+Disable with OVERIVA_JAX_NATIVE=0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+__all__ = ["native_available", "native_shoebox_rir"]
+
+_REPO = Path(__file__).resolve().parent.parent.parent
+_SRC = _REPO / "native" / "rir.cpp"
+_BUILD = _REPO / "build"
+_LIB: ctypes.CDLL | None = None
+_TRIED = False
+
+
+def _build_and_load() -> ctypes.CDLL | None:
+    global _LIB, _TRIED
+    if _LIB is not None or _TRIED:
+        return _LIB
+    _TRIED = True
+    if os.environ.get("OVERIVA_JAX_NATIVE", "1") == "0" or not _SRC.exists():
+        return None
+    so = _BUILD / "librir.so"
+    sidecar = _BUILD / "librir.so.sha256"
+    try:
+        src_hash = hashlib.sha256(_SRC.read_bytes()).hexdigest()
+        stale = (
+            not so.exists()
+            or not sidecar.exists()
+            or sidecar.read_text().strip() != src_hash
+        )
+        if stale:
+            _BUILD.mkdir(exist_ok=True)
+            subprocess.run(
+                [
+                    "g++", "-O3", "-march=native", "-shared", "-fPIC",
+                    str(_SRC), "-o", str(so),
+                ],
+                check=True,
+                capture_output=True,
+            )
+            sidecar.write_text(src_hash)
+        lib = ctypes.CDLL(str(so))
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+    d3 = ctypes.POINTER(ctypes.c_double)
+    lib.shoebox_rir_capacity.restype = ctypes.c_int64
+    lib.shoebox_rir_capacity.argtypes = [
+        d3, d3, d3, ctypes.c_double, ctypes.c_int, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int,
+    ]
+    lib.shoebox_rir.restype = ctypes.c_int64
+    lib.shoebox_rir.argtypes = [
+        d3, d3, d3, ctypes.c_double, ctypes.c_double, ctypes.c_int,
+        ctypes.c_double, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+    ]
+    _LIB = lib
+    return _LIB
+
+
+def native_available() -> bool:
+    return _build_and_load() is not None
+
+
+def _cvec(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, dtype=np.float64))
+
+
+def native_shoebox_rir(
+    room_dim, src, mic, fs, absorption, max_order, c, frac_len=81, extra=64
+) -> np.ndarray | None:
+    """Native RIR, or None when the library is unavailable/errors."""
+    lib = _build_and_load()
+    if lib is None:
+        return None
+    room = _cvec(room_dim)
+    s = _cvec(src)
+    m = _cvec(mic)
+    p = lambda arr: arr.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    cap = lib.shoebox_rir_capacity(
+        p(room), p(s), p(m), fs, int(max_order), c, int(frac_len), int(extra)
+    )
+    if cap <= 0:
+        return None
+    out = np.zeros(int(cap), dtype=np.float64)
+    used = lib.shoebox_rir(
+        p(room), p(s), p(m), float(fs), float(absorption), int(max_order),
+        float(c), int(frac_len), int(extra), p(out), out.shape[0],
+    )
+    if used == -1:
+        raise ValueError("source and mic must be strictly inside the room")
+    if used < 0:
+        return None
+    return out[: int(used)]

@@ -1,85 +1,53 @@
-"""overiva_tpu — TPU-native blind source separation framework.
+"""Former import name of :mod:`overiva_jax`, kept so existing code runs.
 
-A from-scratch JAX/XLA framework with the capabilities of the
-``onolab-tmu/overiva`` reference (WASPAA 2019 OverIVA companion code):
-STFT-domain blind source separation with AuxIVA, OverIVA, OGIVE and
-PCA+AuxIVA, plus the evaluation/simulation harness around them
-(bss_eval metrics, shoebox image-source room simulation, Monte-Carlo
-sweep) — and extensions: ISS/IP2 update rules, FIVE, ILRMA,
-FastMNMF1/2, SparseAuxIVA, WPE dereverberation, the joint
-dereverberation+separation family (tiss/tip/ilrma_t), and streaming
-(OnlineAuxIVAISS/OnlineWPE/OnlineTISS). Every family has a NumPy
-oracle twin, a batched runner, and a bin-sharded multi-chip path.
-
-Public API mirrors the reference (SURVEY.md §2):
-
-    overiva(X, n_src, n_iter, proj_back, W0, model, init_eig,
-            return_filters, callback) -> Y
-    auxiva(...), ogive(...), auxiva_pca(...)
-
-accepting/returning NumPy complex STFT arrays shaped (n_frames, n_freq,
-n_chan), while the hot loop runs as a single fused XLA program on TPU.
+Importing this package, or any submodule under it, returns the very same
+module objects as ``overiva_jax`` (no second copy of any module, so jit
+caches and registries are shared) and emits a ``DeprecationWarning``. The
+former native-RIR switch, this package's name in upper case followed by
+``_NATIVE``, is read as ``OVERIVA_JAX_NATIVE`` when that is not set.
 """
 
-from .version import __version__
+import importlib
+import importlib.abc
+import importlib.util
+import os
+import sys
+import warnings
 
-__all__ = ["__version__"]
+_NEW = "overiva_jax"
+_OLD = __name__
+
+_old_switch = _OLD.upper() + "_NATIVE"
+if _old_switch in os.environ:
+    os.environ.setdefault("OVERIVA_JAX_NATIVE", os.environ[_old_switch])
 
 
-def __getattr__(name):
-    # Lazy imports keep `import overiva_tpu` light and avoid importing JAX
-    # for oracle-only / simulation-only use.
-    if name in _API:
-        module = __import__(f"overiva_tpu.{_API[name]}", fromlist=[name])
-        return getattr(module, name)
-    raise AttributeError(f"module 'overiva_tpu' has no attribute {name!r}")
+class _Forward(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<old>.a.b`` to the module ``overiva_jax.a.b``."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import machinery stamped the alias spec on the real module;
+        # give it back its own
+        module.__spec__ = module.__spec__.loader_state
 
 
-_API = {
-    "auxiva": "api",
-    "auxiva_iss": "api",
-    "overiva": "api",
-    "overiva_ip2": "api",
-    "auxiva_ip2": "api",
-    "overiva_iss": "api",
-    "overiva_batch": "api",
-    "auxiva_iss_batch": "api",
-    "overiva_ip2_batch": "api",
-    "overiva_iss_batch": "api",
-    "ogive_batch": "api",
-    "five_batch": "api",
-    "separate": "api",
-    "ogive": "api",
-    "five": "api",
-    "auxiva_pca": "api",
-    "pca": "api",
-    "ilrma": "api",
-    "fastmnmf": "api",
-    "fastmnmf2": "api",
-    "sparseauxiva": "api",
-    "fastmnmf_batch": "api",
-    "fastmnmf2_batch": "api",
-    "sparseauxiva_batch": "api",
-    "ilrma_batch": "api",
-    "auxiva_pca_batch": "api",
-    "wpe": "api",
-    "wpe_batch": "api",
-    "tiss": "api",
-    "tiss_batch": "api",
-    "ilrma_t": "api",
-    "ilrma_t_batch": "api",
-    "tip": "api",
-    "tip_batch": "api",
-    "Separator": "serving",
-    "SERVABLE": "serving",
-    "bucket_frames": "serving",
-    "OnlineAuxIVAISS": "api",
-    "OnlineTISS": "api",
-    "OnlineWPE": "api",
-    "stft_analysis": "api",
-    "stft_analysis_batch": "api",
-    "to_device": "api",
-    "stft_synthesis": "api",
-    "stft_synthesis_batch": "api",
-    "projection_back": "api",
-}
+if not any(isinstance(f, _Forward) for f in sys.meta_path):
+    sys.meta_path.insert(0, _Forward())
+
+warnings.warn(
+    f"the package {_OLD!r} is now {_NEW!r}; import {_NEW} instead",
+    DeprecationWarning,
+    stacklevel=2,
+)
+
+sys.modules[_OLD] = importlib.import_module(_NEW)

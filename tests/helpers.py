@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from overiva_tpu.oracle import analysis, stft_pad
+from overiva_jax.oracle import analysis, stft_pad
 
 
 def make_sources(rng, n_src: int, n_samples: int) -> np.ndarray:

@@ -4,7 +4,7 @@ for every family (overiva / iss / overiva-iss / ogive / five)."""
 import numpy as np
 import pytest
 
-from overiva_tpu import api
+from overiva_jax import api
 
 from helpers import make_mixture, stft_mixture
 
@@ -148,7 +148,7 @@ def test_auxiva_pca_batch_matches_loop(batch43, inner):
 def test_registry_batch_dispatch(batch43):
     """Every registry entry exposes a batch path and it matches the
     per-instance spec call (sweep-harness contract)."""
-    from overiva_tpu.registry import ALGORITHMS
+    from overiva_jax.registry import ALGORITHMS
 
     batch = batch43
     assert all(s.batch is not None for s in ALGORITHMS.values())

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from overiva_tpu.metrics.bss_eval import (
+from overiva_jax.metrics.bss_eval import (
     BssEvalReferences,
     bss_eval_images,
     bss_eval_sources,

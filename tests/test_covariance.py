@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from overiva_tpu.ops.covariance import (
+from overiva_jax.ops.covariance import (
     covariance,
     weighted_covariance,
     weighted_covariance_chunked,
@@ -53,7 +53,7 @@ def test_weighted_tf_matches_einsum(rng):
 
 
 def test_chunked_bf16_close_to_dense(rng):
-    """wcov="bf16" threads through the streamed path (ADVICE round 2):
+    """wcov="bf16" threads through the streamed path:
     per-chunk bfloat16 operands, f32 accumulation — relative error at the
     bf16 operand-rounding scale, not silently the f32 path."""
     X = _mk(rng, T=96).astype(jnp.complex64)
@@ -66,9 +66,9 @@ def test_chunked_bf16_close_to_dense(rng):
 
 
 def test_weighted_all_chunked_matches_dense(rng):
-    """All-K frame-chunked scan (the fast T>=256 form on TPU) == dense,
+    """All-K frame-chunked scan (the bounded-memory form) == dense,
     including a padded tail."""
-    from overiva_tpu.ops.covariance import weighted_covariance_all
+    from overiva_jax.ops.covariance import weighted_covariance_all
 
     X = _mk(rng, T=100)
     phi = jnp.asarray(rng.random((100, 3)))
@@ -79,9 +79,9 @@ def test_weighted_all_chunked_matches_dense(rng):
 
 
 def test_wcov_f32x3_mode_runs_and_matches_on_cpu(rng):
-    """f32x3 (lax.Precision.HIGH): exact on CPU (precision flags only
-    affect TPU MXU lowering); on TPU it is the ~1e-5 middle tier."""
-    from overiva_tpu.ops.covariance import (
+    """f32x3 (lax.Precision.HIGH): exact on CPU (precision flags do not
+    change the CPU lowering); on the GPU it runs as TF32."""
+    from overiva_jax.ops.covariance import (
         weighted_covariance_all,
         weighted_covariance_tf,
     )

@@ -1,7 +1,7 @@
 """Double-float (f32x2) arithmetic: exactness and f64-equivalence under jit.
 
 The df tier exists so the gauss-family parity gate can run at ~f64 precision
-on a TPU that has no native float64 (VERDICT r4 item 1; ops/df.py). These
+on hardware without fast float64 (ops/df.py). These
 tests pin down the two properties everything rests on:
 
 1. the error-free transforms (TwoSum/TwoProd) are EXACT for f32 inputs, and
@@ -17,7 +17,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from overiva_tpu.ops import df
+from overiva_jax.ops import df
 
 
 

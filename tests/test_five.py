@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import overiva_tpu.oracle as oracle
-from overiva_tpu import api
+import overiva_jax.oracle as oracle
+from overiva_jax import api
 
 from helpers import make_mixture, stft_mixture
 from test_oracle_algos import stft_sir_matrix

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from overiva_tpu.ops.fminor import (
+from overiva_jax.ops.fminor import (
     gauss_solve_fm,
     mat_h_fm,
     matmul_fm,

@@ -1,12 +1,12 @@
 """ILRMA-T (joint dereverberation + ILRMA via T-ISS steering): exact
 likelihood monotonicity, separation, JAX parity, batch/sharded consistency
-(derivation: overiva_tpu/oracle/ilrma_t.py)."""
+(derivation: overiva_jax/oracle/ilrma_t.py)."""
 
 import numpy as np
 import pytest
 
-from overiva_tpu import api
-from overiva_tpu.oracle.ilrma_t import ilrma_t, ilrma_t_loglik
+from overiva_jax import api
+from overiva_jax.oracle.ilrma_t import ilrma_t, ilrma_t_loglik
 
 from helpers import make_mixture, stft_mixture
 from test_oracle_algos import separation_success
@@ -102,7 +102,7 @@ def test_batch_matches_single(mixture23_small):
 
 
 def test_registry():
-    from overiva_tpu.registry import applicable, get_algorithm
+    from overiva_jax.registry import applicable, get_algorithm
 
     spec = get_algorithm("ilrma-t")
     assert applicable("ilrma-t", 2, 2) and not applicable("ilrma-t", 2, 3)
@@ -116,8 +116,8 @@ def test_registry():
 def test_sharded_matches_single_device(mixture23_small):
     import jax
 
-    from overiva_tpu.parallel.mesh import make_mesh
-    from overiva_tpu.parallel.sharded import sharded_ilrma_t
+    from overiva_jax.parallel.mesh import make_mesh
+    from overiva_jax.parallel.sharded import sharded_ilrma_t
 
     X = mixture23_small[:40].astype(np.complex64)
     n_bins = min(4, len(jax.devices()))

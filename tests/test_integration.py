@@ -6,9 +6,9 @@ between the complex64 JAX path and the float64 NumPy oracle
 import numpy as np
 import pytest
 
-import overiva_tpu.oracle as oracle
-from overiva_tpu import api
-from overiva_tpu.metrics import bss_eval_sources
+import overiva_jax.oracle as oracle
+from overiva_jax import api
+from overiva_jax.metrics import bss_eval_sources
 
 from helpers import make_mixture
 
@@ -148,7 +148,7 @@ def test_auxiva_pca_pipeline():
     ("gauss", 104), ("gauss", 212), ("laplace", 102),
 ])
 def test_same_precision_parity_gate(model, seed):
-    """oracle-c64 vs JAX-c64 at 0.02 dB (VERDICT r2 item 3): the 0.1 dB
+    """oracle-c64 vs JAX-c64 at 0.02 dB: the 0.1 dB
     c64-vs-f64 gate has only ~0.013 dB of implementation headroom left on
     overiva-gauss (the rest is the intrinsic precision floor, PARITY.md
     round-2 decomposition), so implementation drift is gated here at the

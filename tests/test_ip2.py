@@ -5,9 +5,9 @@ JAX parity, and the 0.1 dB end-to-end gate."""
 import numpy as np
 import pytest
 
-import overiva_tpu.oracle as oracle
-from overiva_tpu import api
-from overiva_tpu.oracle.models import activations
+import overiva_jax.oracle as oracle
+from overiva_jax import api
+from overiva_jax.oracle.models import activations
 
 from helpers import make_mixture, stft_mixture
 from test_oracle_algos import separation_success
@@ -148,7 +148,7 @@ def test_ip2_parity_gate_end_to_end():
 
 
 def test_ip2_registry():
-    from overiva_tpu.registry import applicable
+    from overiva_jax.registry import applicable
 
     assert applicable("overiva-ip2", 2, 5)
     assert applicable("overiva-ip2", 3, 3)
@@ -180,8 +180,8 @@ def test_ip2_fused_serving_path(mixture52):
 def test_sharded_ip2_matches_single_device(mixture52):
     import jax
 
-    from overiva_tpu.parallel.mesh import make_mesh
-    from overiva_tpu.parallel.sharded import sharded_overiva_ip2
+    from overiva_jax.parallel.mesh import make_mesh
+    from overiva_jax.parallel.sharded import sharded_overiva_ip2
 
     X, _ = mixture52
     Xs = np.asarray(X[:40], np.complex64)

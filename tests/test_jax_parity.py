@@ -4,8 +4,8 @@ against the oracle; exact-trajectory parity in complex128 on CPU)."""
 import numpy as np
 import pytest
 
-import overiva_tpu.oracle as oracle
-from overiva_tpu import api
+import overiva_jax.oracle as oracle
+from overiva_jax import api
 
 from helpers import make_mixture, stft_mixture
 

@@ -1,6 +1,6 @@
 """acc="f32x2" (double-float) T-ISS / T-IP vs the float64 oracles.
 
-VERDICT r4 item 8: tip was the thinnest-margin family on the 10-seed
+Why: tip was the thinnest-margin family on the 10-seed
 hardware certification (0.061/0.027 dB vs the 0.1 gate). The df tier
 extended to the joint family (models/joint_df.py) must reproduce the f64
 oracle run on the c64-quantized input to ~1e-6 relative element-wise
@@ -10,7 +10,7 @@ deltas, the same equivalence target as tests/test_overiva_df.py.
 import numpy as np
 import pytest
 
-from overiva_tpu import api, oracle
+from overiva_jax import api, oracle
 
 
 @pytest.fixture

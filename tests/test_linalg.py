@@ -5,7 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from overiva_tpu.ops.linalg import gauss_solve, small_inv
+from overiva_jax.ops.fminor import gauss_solve_fm
+from overiva_jax.ops.linalg import gauss_solve, small_inv
 
 
 @pytest.mark.parametrize("m,k", [(2, 1), (3, 2), (8, 1), (8, 8), (5, 3)])
@@ -48,3 +49,33 @@ def test_gauss_solve_hermitian_psd(rng):
     e[:, 2, 0] = 1.0
     X = np.asarray(gauss_solve(jnp.asarray(WV), jnp.asarray(e)))
     np.testing.assert_allclose(X, np.linalg.solve(WV, e), rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("m", [2, 3, 5, 8])
+@pytest.mark.parametrize("cond", [1e4, 1e5, 1e6])
+def test_gauss_solve_forward_error_within_cond_eps(m, cond):
+    """complex64 solves of ill-conditioned Hermitian systems (the lowest
+    bins' covariances on a small array) keep their forward error below
+    cond * eps, in both layouts. A closed-form 3x3 adjugate inverse read
+    3-69x cond * eps here, and its lost digits spread through the joint
+    activations to every bin of a 30-epoch N=3 separation
+    (docs/DESIGN.md §4c)."""
+    rng = np.random.default_rng(4)
+    F = 256
+    Q, _ = np.linalg.qr(
+        rng.standard_normal((F, m, m)) + 1j * rng.standard_normal((F, m, m))
+    )
+    ew = np.geomspace(1.0, 1.0 / cond, m)
+    A = ((Q * ew) @ Q.conj().transpose(0, 2, 1)).astype(np.complex64)
+    B = (rng.standard_normal((F, m, 2))
+         + 1j * rng.standard_normal((F, m, 2))).astype(np.complex64)
+    ref = np.linalg.solve(A.astype(np.complex128), B.astype(np.complex128))
+    bound = cond * np.finfo(np.float32).eps
+    for X in (
+        np.asarray(gauss_solve(jnp.asarray(A), jnp.asarray(B))),
+        np.asarray(gauss_solve_fm(jnp.asarray(A.transpose(1, 2, 0)),
+                                  jnp.asarray(B.transpose(1, 2, 0)))
+                   ).transpose(2, 0, 1),
+    ):
+        err = np.abs(X - ref).max(axis=(1, 2)) / np.abs(ref).max(axis=(1, 2))
+        assert err.max() <= bound, (err.max(), bound)

@@ -5,8 +5,8 @@ import time
 import numpy as np
 import pytest
 
-from overiva_tpu.sim import shoebox_rir
-from overiva_tpu.sim._native import native_available
+from overiva_jax.sim import shoebox_rir
+from overiva_jax.sim._native import native_available
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="no C++ toolchain / native build failed"

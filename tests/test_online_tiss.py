@@ -6,7 +6,7 @@ models/online_tiss.py and docs/DESIGN.md §8)."""
 import numpy as np
 import pytest
 
-from overiva_tpu.api import OnlineAuxIVAISS, OnlineTISS
+from overiva_jax.api import OnlineAuxIVAISS, OnlineTISS
 
 from helpers import make_mixture, stft_mixture
 from test_oracle_algos import stft_sir_matrix

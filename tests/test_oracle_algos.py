@@ -8,7 +8,7 @@ full time-domain bss_eval tests live in test_bss_eval.py / integration tests.
 import numpy as np
 import pytest
 
-from overiva_tpu.oracle import (
+from overiva_jax.oracle import (
     activations,
     apply_projection_back,
     auxiva,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from overiva_tpu.oracle import analysis, hann, stft_pad, synthesis, synthesis_window
+from overiva_jax.oracle import analysis, hann, stft_pad, synthesis, synthesis_window
 
 
 @pytest.mark.parametrize("nfft,hop", [(256, 128), (512, 256), (512, 128), (4096, 2048)])

@@ -11,7 +11,7 @@ quality gate — the chaotic amplification that makes c64 drift 0.1 dB has
 import numpy as np
 import pytest
 
-from overiva_tpu import api, oracle
+from overiva_jax import api, oracle
 
 
 @pytest.fixture

@@ -1,12 +1,12 @@
 """OverIVA-ISS (overdetermined rank-1 source steering): oracle behavior,
 degeneracy to AuxIVA-ISS at N == M, JAX parity, quality vs OverIVA-IP, and
-the sharded path (oracle derivation: overiva_tpu/oracle/overiva_iss.py)."""
+the sharded path (oracle derivation: overiva_jax/oracle/overiva_iss.py)."""
 
 import numpy as np
 import pytest
 
-import overiva_tpu.oracle as oracle
-from overiva_tpu import api
+import overiva_jax.oracle as oracle
+from overiva_jax import api
 
 from helpers import make_mixture, stft_mixture
 from test_oracle_algos import separation_success
@@ -95,7 +95,7 @@ def test_overiva_iss_w0_roundtrip(mixture52):
 
 
 def test_overiva_iss_registry():
-    from overiva_tpu.registry import applicable, get_algorithm
+    from overiva_jax.registry import applicable, get_algorithm
 
     spec = get_algorithm("overiva-iss")
     assert applicable("overiva-iss", 2, 5)
@@ -111,8 +111,8 @@ def test_overiva_iss_registry():
 def test_sharded_overiva_iss_matches_single_device(mixture52):
     import jax
 
-    from overiva_tpu.parallel.mesh import make_mesh
-    from overiva_tpu.parallel.sharded import sharded_overiva_iss
+    from overiva_jax.parallel.mesh import make_mesh
+    from overiva_jax.parallel.sharded import sharded_overiva_iss
 
     X, _ = mixture52
     Xs = X[:40].astype(np.complex64)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from overiva_tpu import api
-from overiva_tpu.utils.checkpoint import load_filters, save_filters
+from overiva_jax import api
+from overiva_jax.utils.checkpoint import load_filters, save_filters
 
 from helpers import make_mixture
 
@@ -15,7 +15,7 @@ def test_separate_time_matches_staged():
     y = api.separate(mix, n_src=2, nfft=nfft, n_iter=10, dtype=np.complex128)
     assert y.shape == (mix.shape[0], 2)
     # staged path on identical input
-    from overiva_tpu.oracle import stft_pad
+    from overiva_jax.oracle import stft_pad
 
     X = api.stft_analysis(stft_pad(mix, nfft, hop), nfft, dtype=np.complex128)
     Y = api.overiva(X, n_src=2, n_iter=10, dtype=np.complex128)
@@ -50,8 +50,8 @@ def test_separate_iss_path():
     matches the composed overiva_iss pipeline."""
     import numpy as np
 
-    from overiva_tpu import api
-    from overiva_tpu.oracle import stft_pad
+    from overiva_jax import api
+    from overiva_jax.oracle import stft_pad
 
     from helpers import make_mixture
 
@@ -76,8 +76,8 @@ def test_separate_fastmnmf_algos():
     at mic 0 — no projection back in this branch)."""
     import numpy as np
 
-    from overiva_tpu import api
-    from overiva_tpu.metrics import BssEvalReferences
+    from overiva_jax import api
+    from overiva_jax.metrics import BssEvalReferences
 
     from helpers import make_mixture
 
@@ -96,7 +96,7 @@ def test_separate_fastmnmf_algos():
 def test_streaming_state_checkpoint_roundtrip(tmp_path, rng):
     """OnlineWPE/OnlineAuxIVAISS save/restore: a restored instance
     continues the stream bit-identically to the uninterrupted one."""
-    from overiva_tpu import api
+    from overiva_jax import api
 
     F, M, B = 9, 2, 12
     blocks = [
@@ -145,7 +145,7 @@ def test_stft_synthesis_win_s_is_used(rng):
     """win_s must actually be applied (it was silently dropped once): the
     canonical dual window passed explicitly reproduces the default path,
     and a different window changes the output."""
-    from overiva_tpu.ops.stft import hann, synthesis_window
+    from overiva_jax.ops.stft import hann, synthesis_window
 
     nfft, hop = 256, 128
     X = (

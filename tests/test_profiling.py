@@ -1,10 +1,10 @@
-"""Observability utilities: timers, sync, convergence recorder."""
+"""Observability utilities: timers, device waits, convergence recorder."""
 
 import numpy as np
 
-from overiva_tpu import api
-from overiva_tpu.oracle import analysis, stft_pad
-from overiva_tpu.utils.profiling import ConvergenceRecorder, PhaseTimer, device_sync
+from overiva_jax import api
+from overiva_jax.oracle import analysis, stft_pad
+from overiva_jax.utils.profiling import ConvergenceRecorder, PhaseTimer
 
 from helpers import make_mixture
 
@@ -23,11 +23,28 @@ def test_phase_timer_accumulates():
     assert d["a"]["count"] == 2
 
 
-def test_device_sync_dtypes():
+def test_phase_timer_sync_blocks_until_ready(monkeypatch):
+    """sync_on waits through jax.block_until_ready, before the clock stops,
+    on every array of the pytree it is given (complex included)."""
+    import jax
     import jax.numpy as jnp
 
-    device_sync(jnp.ones((4,)))
-    device_sync(jnp.ones((4,)) + 1j * jnp.ones((4,)))
+    seen = []
+    real = jax.block_until_ready
+
+    def spy(x):
+        seen.append(x)
+        return real(x)
+
+    monkeypatch.setattr(jax, "block_until_ready", spy)
+    out = (jnp.ones((4,)), jnp.ones((4,)) + 1j * jnp.ones((4,)))
+    t = PhaseTimer()
+    with t("run", sync_on=out):
+        pass
+    with t("free"):
+        pass
+    assert len(seen) == 1 and seen[0] is out
+    assert t.counts["run"] == 1 and t.counts["free"] == 1
 
 
 def test_convergence_recorder_improves():

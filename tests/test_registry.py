@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from overiva_tpu.registry import ALGORITHMS, applicable, get_algorithm
-from overiva_tpu.utils.audio import AudioPlayer, save_wavs
+from overiva_jax.registry import ALGORITHMS, applicable, get_algorithm
+from overiva_jax.utils.audio import AudioPlayer, save_wavs
 
 from helpers import make_mixture, stft_mixture
 
@@ -48,7 +48,7 @@ def test_save_wavs(tmp_path, rng):
 def test_df_registry_names(rng):
     # certification-tier names dispatch the acc="f32x2" path and honor
     # the batch contract (per-element loop — documented non-fused)
-    from overiva_tpu.registry import get_algorithm
+    from overiva_jax.registry import get_algorithm
 
     X = (rng.standard_normal((40, 9, 3))
          + 1j * rng.standard_normal((40, 9, 3))).astype(np.complex64)

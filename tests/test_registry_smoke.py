@@ -11,7 +11,7 @@ iterations on a 3-mic mixture.
 import numpy as np
 import pytest
 
-from overiva_tpu.registry import ALGORITHMS, applicable
+from overiva_jax.registry import ALGORITHMS, applicable
 
 from helpers import make_mixture, stft_mixture
 

@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from overiva_tpu import api
-from overiva_tpu.parallel.mesh import make_mesh
-from overiva_tpu.parallel.sharded import (
+from overiva_jax import api
+from overiva_jax.parallel.mesh import make_mesh
+from overiva_jax.parallel.sharded import (
     sharded_auxiva_iss,
     sharded_auxiva_pca,
     sharded_ogive,
@@ -62,7 +62,7 @@ def test_mix_axis_requires_divisible_batch(batch):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4)])
 def test_sharded_auxiva_pca_matches_single_device(batch, mesh_shape):
-    # the 15th family (VERDICT r3 item 6): per-bin eigh reduction is
+    # the 15th family: per-bin eigh reduction is
     # bin-local, the inner determined AuxIVA psums activations as usual
     assert len(jax.devices()) >= mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(
@@ -78,7 +78,7 @@ def test_sharded_auxiva_pca_matches_single_device(batch, mesh_shape):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4)])
 def test_sharded_iss_matches_single_device(batch, mesh_shape):
-    from overiva_tpu import api
+    from overiva_jax import api
 
     mesh = make_mesh(*mesh_shape, devices=jax.devices()[: mesh_shape[0] * mesh_shape[1]])
     Y = np.asarray(sharded_auxiva_iss(mesh, jnp.asarray(batch), n_iter=6))
@@ -89,8 +89,8 @@ def test_sharded_iss_matches_single_device(batch, mesh_shape):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4)])
 def test_sharded_ilrma_matches_single_device(batch, mesh_shape):
-    from overiva_tpu import api
-    from overiva_tpu.parallel.sharded import sharded_ilrma
+    from overiva_jax import api
+    from overiva_jax.parallel.sharded import sharded_ilrma
 
     mesh = make_mesh(*mesh_shape, devices=jax.devices()[: mesh_shape[0] * mesh_shape[1]])
     Y = np.asarray(sharded_ilrma(mesh, jnp.asarray(batch), n_iter=5, seed=7))
@@ -101,7 +101,7 @@ def test_sharded_ilrma_matches_single_device(batch, mesh_shape):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 2)])
 def test_sharded_ogive_matches_single_device(batch, mesh_shape):
-    from overiva_tpu import api
+    from overiva_jax import api
 
     mesh = make_mesh(*mesh_shape, devices=jax.devices()[: mesh_shape[0] * mesh_shape[1]])
     Xd = jnp.asarray(batch)
@@ -117,8 +117,8 @@ def test_sharded_ogive_matches_single_device(batch, mesh_shape):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4)])
 def test_sharded_fastmnmf2_matches_single_device(batch, mesh_shape):
-    from overiva_tpu import api
-    from overiva_tpu.parallel.sharded import sharded_fastmnmf2
+    from overiva_jax import api
+    from overiva_jax.parallel.sharded import sharded_fastmnmf2
 
     mesh = make_mesh(*mesh_shape, devices=jax.devices()[: mesh_shape[0] * mesh_shape[1]])
     Y = np.asarray(
@@ -134,8 +134,8 @@ def test_sharded_fastmnmf2_matches_single_device(batch, mesh_shape):
 def test_sharded_fastmnmf1_matches_single_device(batch):
     """Untied per-frequency g (FastMNMF1): g is bin-sharded and its update
     is local — the sharded trajectory must still equal single-device."""
-    from overiva_tpu import api
-    from overiva_tpu.parallel.sharded import sharded_fastmnmf2
+    from overiva_jax import api
+    from overiva_jax.parallel.sharded import sharded_fastmnmf2
 
     mesh = make_mesh(2, 4, devices=jax.devices()[:8])
     Y = np.asarray(
@@ -152,8 +152,8 @@ def test_sharded_fastmnmf1_matches_single_device(batch):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4)])
 def test_sharded_five_matches_single_device(batch, mesh_shape):
-    from overiva_tpu import api
-    from overiva_tpu.parallel.sharded import sharded_five
+    from overiva_jax import api
+    from overiva_jax.parallel.sharded import sharded_five
 
     mesh = make_mesh(*mesh_shape, devices=jax.devices()[: mesh_shape[0] * mesh_shape[1]])
     Y = np.asarray(sharded_five(mesh, jnp.asarray(batch), n_iter=6))
@@ -166,9 +166,9 @@ def test_sharded_five_matches_single_device(batch, mesh_shape):
 def test_sharded_sparseauxiva_matches_single_device(batch, mesh_shape):
     """Subset-IP sharded over the selected-bin axis, FISTA replicated after
     the k-bin gather, polish on the full-bin axis — must equal the
-    single-device api.sparseauxiva trajectory (VERDICT r2 item 1)."""
-    from overiva_tpu import api
-    from overiva_tpu.parallel.sharded import sharded_sparseauxiva
+    single-device api.sparseauxiva trajectory."""
+    from overiva_jax import api
+    from overiva_jax.parallel.sharded import sharded_sparseauxiva
 
     mesh = make_mesh(*mesh_shape, devices=jax.devices()[: mesh_shape[0] * mesh_shape[1]])
     Y = np.asarray(
@@ -185,7 +185,7 @@ def test_sharded_sparseauxiva_matches_single_device(batch, mesh_shape):
 
 
 def test_sharded_sparseauxiva_explicit_s_and_validation(batch):
-    from overiva_tpu.parallel.sharded import sharded_sparseauxiva
+    from overiva_jax.parallel.sharded import sharded_sparseauxiva
 
     mesh = make_mesh(2, 4)
     F = batch.shape[2]
@@ -204,7 +204,7 @@ def test_sharded_sparseauxiva_explicit_s_and_validation(batch):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4)])
 def test_sharded_wpe_matches_single_device(batch, mesh_shape):
-    from overiva_tpu.parallel.sharded import sharded_wpe
+    from overiva_jax.parallel.sharded import sharded_wpe
 
     assert len(jax.devices()) >= mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(*mesh_shape, devices=jax.devices()[: mesh_shape[0] * mesh_shape[1]])
@@ -218,11 +218,11 @@ def test_sharded_wpe_matches_single_device(batch, mesh_shape):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4)])
 def test_sharded_online_iss_matches_oracle(batch, mesh_shape):
-    """Streaming twin (VERDICT r4 item 4c): B parallel streams, mix-axis
+    """Streaming twin: B parallel streams, mix-axis
     data parallel AND bin-sharded, block-scanned state — must match the
     float64 NumPy oracle stream (oracle/online_iss.py) per element."""
-    from overiva_tpu.oracle.online_iss import online_iss_run
-    from overiva_tpu.parallel.sharded import sharded_online_iss
+    from overiva_jax.oracle.online_iss import online_iss_run
+    from overiva_jax.parallel.sharded import sharded_online_iss
 
     assert len(jax.devices()) >= mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(
@@ -247,11 +247,11 @@ def test_sharded_online_tiss_matches_single_device(batch, mesh_shape):
     single-device online_tiss_step stream per element (c128) — the tap
     normal-equation solve is per-bin, so sharding only reorders the one
     power psum."""
-    from overiva_tpu.models.online_tiss import (
+    from overiva_jax.models.online_tiss import (
         online_tiss_init,
         online_tiss_step,
     )
-    from overiva_tpu.parallel.sharded import sharded_online_tiss
+    from overiva_jax.parallel.sharded import sharded_online_tiss
 
     assert len(jax.devices()) >= mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(

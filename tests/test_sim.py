@@ -4,7 +4,7 @@ delay, Schroeder decay vs target RT60, API shape checks."""
 import numpy as np
 import pytest
 
-from overiva_tpu.sim import (
+from overiva_jax.sim import (
     ShoeBox,
     circular_mic_array,
     inverse_sabine,
@@ -87,7 +87,7 @@ def test_layout_shapes():
 
 
 def test_random_and_grid_layouts():
-    from overiva_tpu.sim import grid_layout, random_layout
+    from overiva_jax.sim import grid_layout, random_layout
 
     rng = np.random.default_rng(0)
     pts = random_layout([0, 0, 0], [4, 5, 3], 10, rng=rng, margin=0.5)

@@ -7,9 +7,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from overiva_tpu import api
-from overiva_tpu.ops.fminor import gauss_solve_fm, quad_form_fm
-from overiva_tpu.ops.linalg import gauss_solve
+from overiva_jax import api
+from overiva_jax.ops.fminor import gauss_solve_fm, quad_form_fm
+from overiva_jax.ops.linalg import gauss_solve
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 5, 8])
@@ -53,7 +53,7 @@ def test_gauss_solve_spread_eigenvalues_not_zeroed(m, spread):
     declared dead: an early eps*scale^m gate zeroed these and cost
     3-8 dB on the N=1 sweep cells (docs/DESIGN.md 4b). At cond 1e4 the
     solve must also be accurate; at cond 1e6 f32 keeps few digits (the
-    m<=3 adjugate forms amplify eps*cond), so only magnitude-level
+    m=2 adjugate form amplifies eps*cond), so only magnitude-level
     agreement — which zeroing fails by 100% — is required."""
     rng = np.random.default_rng(3)
     F = 5

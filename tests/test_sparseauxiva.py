@@ -9,16 +9,16 @@ resulting behavior.
 import numpy as np
 import pytest
 
-from overiva_tpu import api
-from overiva_tpu.metrics import BssEvalReferences
-from overiva_tpu.oracle import synthesis
-from overiva_tpu.oracle.auxiva import auxiva as oracle_auxiva
-from overiva_tpu.oracle.sparseauxiva import (
+from overiva_jax import api
+from overiva_jax.metrics import BssEvalReferences
+from overiva_jax.oracle import synthesis
+from overiva_jax.oracle.auxiva import auxiva as oracle_auxiva
+from overiva_jax.oracle.sparseauxiva import (
     select_bins,
     sparir,
     sparseauxiva as oracle_sparse,
 )
-from overiva_tpu.registry import applicable, get_algorithm
+from overiva_jax.registry import applicable, get_algorithm
 
 from helpers import make_mixture, stft_mixture
 
@@ -126,7 +126,7 @@ def test_n_bins_parameter(mixture22):
     selects every bin (exact AuxIVA degeneration path)."""
     _, _, X = mixture22
     F = X.shape[1]
-    from overiva_tpu.oracle.sparseauxiva import _resolve_n_bins
+    from overiva_jax.oracle.sparseauxiva import _resolve_n_bins
 
     assert _resolve_n_bins(None, F, 2) == int(np.ceil(0.25 * F))
     assert _resolve_n_bins(0.5, F, 2) == int(np.ceil(0.5 * F))
@@ -173,14 +173,13 @@ def test_registry_entry(mixture22):
 
 
 def test_dft_phases_exact_at_large_nfft():
-    """Reconstruction DFT angles are formed in integers mod nfft (ADVICE
-    round 2): at nfft=16384 the raw f32 index product exceeds 2^24 and
+    """Reconstruction DFT angles are formed in integers mod nfft: at nfft=16384 the raw f32 index product exceeds 2^24 and
     drifts by milliradians; the int path must stay at f32 rounding of the
     final angle (~1e-4 rad abs)."""
     import jax.numpy as jnp
 
-    from overiva_tpu.models.sparseauxiva import sparse_reconstruct  # noqa: F401
-    import overiva_tpu.models.sparseauxiva as m
+    from overiva_jax.models.sparseauxiva import sparse_reconstruct  # noqa: F401
+    import overiva_jax.models.sparseauxiva as m
 
     nfft = 16384
     n_causal, n_acausal = 300, 30

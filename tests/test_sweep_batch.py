@@ -1,6 +1,6 @@
 """Batched sweep harness: grouped same-shape instances through the fused
 *_batch programs must reproduce the one-at-a-time sweep's JSONs exactly
-(VERDICT r2 item 2), including resume-by-skip and padded partial chunks."""
+, including resume-by-skip and padded partial chunks."""
 
 import copy
 import json

@@ -1,15 +1,15 @@
 """T-IP (joint dereverberation + separation, exact IP rows): oracle
 invariants (AuxIVA degeneration, surrogate descent), warm-start behavior,
 JAX parity, batch/sharded consistency, reverberant-scene quality
-(derivation: overiva_tpu/oracle/tip.py)."""
+(derivation: overiva_jax/oracle/tip.py)."""
 
 import numpy as np
 import pytest
 
-import overiva_tpu.oracle as oracle
-from overiva_tpu import api
-from overiva_tpu.oracle.models import activations
-from overiva_tpu.oracle.wpe import delayed_taps
+import overiva_jax.oracle as oracle
+from overiva_jax import api
+from overiva_jax.oracle.models import activations
+from overiva_jax.oracle.wpe import delayed_taps
 
 from helpers import make_mixture, stft_mixture
 
@@ -129,7 +129,7 @@ def test_validation_and_registry():
     with pytest.raises(ValueError):
         api.tip(X, n_src=3)
 
-    from overiva_tpu.registry import applicable, get_algorithm
+    from overiva_jax.registry import applicable, get_algorithm
 
     spec = get_algorithm("tip")
     assert applicable("tip", 2, 4) and applicable("tip", 2, 2)
@@ -156,8 +156,8 @@ def test_separate_fused_tip_and_ilrma_t():
 def test_sharded_tip_matches_single_device(mixture23):
     import jax
 
-    from overiva_tpu.parallel.mesh import make_mesh
-    from overiva_tpu.parallel.sharded import sharded_tip
+    from overiva_jax.parallel.mesh import make_mesh
+    from overiva_jax.parallel.sharded import sharded_tip
 
     X = mixture23[:40].astype(np.complex64)
     n_bins = min(4, len(jax.devices()))
@@ -178,10 +178,10 @@ def test_tip_polish_improves_tiss_on_reverberant_room():
     """The measured claim (docs/DESIGN.md §8): after the T-ISS warm-up, a
     short gauss T-IP polish improves SIR over T-ISS alone on a hard
     reverberant room (window 32 ms << RT60 400 ms tail)."""
-    from overiva_tpu.metrics.bss_eval import bss_eval_sources
-    from overiva_tpu.oracle import analysis, stft_pad, synthesis
-    from overiva_tpu.sim import ShoeBox, circular_mic_array, semi_circle_layout
-    from overiva_tpu.sim.sources import speech_like
+    from overiva_jax.metrics.bss_eval import bss_eval_sources
+    from overiva_jax.oracle import analysis, stft_pad, synthesis
+    from overiva_jax.sim import ShoeBox, circular_mic_array, semi_circle_layout
+    from overiva_jax.sim.sources import speech_like
 
     fs, n = 16000, 16000 * 6
     nfft, hop, seed = 512, 256, 12

@@ -1,15 +1,15 @@
 """T-ISS (joint dereverberation + separation by iterative source steering):
 oracle invariants (taps=0 degeneration, surrogate descent), JAX parity,
 batch/callback/W0 consistency, sharded path, and the reverberant-scene
-quality claim (derivation: overiva_tpu/oracle/tiss.py)."""
+quality claim (derivation: overiva_jax/oracle/tiss.py)."""
 
 import numpy as np
 import pytest
 
-import overiva_tpu.oracle as oracle
-from overiva_tpu import api
-from overiva_tpu.oracle.models import activations
-from overiva_tpu.oracle.wpe import delayed_taps
+import overiva_jax.oracle as oracle
+from overiva_jax import api
+from overiva_jax.oracle.models import activations
+from overiva_jax.oracle.wpe import delayed_taps
 
 from helpers import make_mixture, stft_mixture
 
@@ -159,7 +159,7 @@ def test_validation():
 
 
 def test_registry():
-    from overiva_tpu.registry import applicable, get_algorithm
+    from overiva_jax.registry import applicable, get_algorithm
 
     spec = get_algorithm("tiss")
     assert applicable("tiss", 2, 4) and applicable("tiss", 3, 3)
@@ -190,8 +190,8 @@ def test_separate_fused_tiss(mixture23):
 def test_sharded_tiss_matches_single_device(mixture23):
     import jax
 
-    from overiva_tpu.parallel.mesh import make_mesh
-    from overiva_tpu.parallel.sharded import sharded_tiss
+    from overiva_jax.parallel.mesh import make_mesh
+    from overiva_jax.parallel.sharded import sharded_tiss
 
     X = mixture23[:40].astype(np.complex64)
     n_bins = min(4, len(jax.devices()))
@@ -208,10 +208,10 @@ def test_tiss_beats_plain_iss_on_reverberant_room():
     in the regime where the cascade analysis says dereverberation pays
     (window 32 ms << RT60 400 ms — docs/DESIGN.md §7): T-ISS must beat
     plain OverIVA-ISS by a wide SIR margin."""
-    from overiva_tpu.metrics.bss_eval import bss_eval_sources
-    from overiva_tpu.oracle import analysis, stft_pad, synthesis
-    from overiva_tpu.sim import ShoeBox, circular_mic_array, semi_circle_layout
-    from overiva_tpu.sim.sources import speech_like
+    from overiva_jax.metrics.bss_eval import bss_eval_sources
+    from overiva_jax.oracle import analysis, stft_pad, synthesis
+    from overiva_jax.sim import ShoeBox, circular_mic_array, semi_circle_layout
+    from overiva_jax.sim.sources import speech_like
 
     fs, n = 16000, 16000 * 6
     nfft, hop, seed = 512, 256, 5

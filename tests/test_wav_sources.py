@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from scipy.io import wavfile
 
-from overiva_tpu.sim import load_wav_sources, speech_like
+from overiva_jax.sim import load_wav_sources, speech_like
 
 
 @pytest.fixture()
@@ -86,7 +86,7 @@ def _find_speech_corpus():
     candidates += [
         "/root/data/cmu_arctic",
         "/root/datasets/cmu_arctic",
-        str(Path.home() / ".cache" / "overiva_tpu" / "speech"),
+        str(Path.home() / ".cache" / "overiva_jax" / "speech"),
         "/root/repo/data/speech",
     ]
     for c in candidates:
@@ -106,7 +106,7 @@ _CORPUS = _find_speech_corpus()
     reason="no real-speech corpus present (set OVERIVA_SPEECH_DIR or place "
     ">=3 wavs under data/speech/) — the --source-dir path is validated on "
     "generated wavs above; this test upgrades the validation to real "
-    "recorded speech the moment data appears (VERDICT r3 missing item 1)",
+    "recorded speech the moment data appears",
 )
 def test_real_speech_end_to_end():
     """Full oneshot pipeline on REAL recorded speech: separate a simulated
@@ -125,7 +125,7 @@ def test_real_speech_end_to_end():
             "--source-dir", str(_CORPUS), "--seed", "3",
         ],
         capture_output=True, text=True, timeout=1200,
-        env={**__import__("os").environ, "OVERIVA_FORCE_CPU": "1"},
+        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "SIR" in proc.stdout or "sir" in proc.stdout

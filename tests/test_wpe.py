@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from overiva_tpu.oracle import wpe as oracle_wpe
-from overiva_tpu.oracle.wpe import delayed_taps as np_delayed_taps
+from overiva_jax.oracle import wpe as oracle_wpe
+from overiva_jax.oracle.wpe import delayed_taps as np_delayed_taps
 
 
 def _ar_reverb_scene(rng, T=120, F=9, M=3, taps=4, delay=2, strength=0.45):
@@ -42,7 +42,7 @@ def _ar_reverb_scene(rng, T=120, F=9, M=3, taps=4, delay=2, strength=0.45):
 def test_delayed_taps_jax_matches_oracle(rng):
     import jax.numpy as jnp
 
-    from overiva_tpu.ops.wpe import delayed_taps
+    from overiva_jax.ops.wpe import delayed_taps
 
     X = (rng.standard_normal((11, 5, 3)) + 1j * rng.standard_normal((11, 5, 3)))
     ref = np_delayed_taps(X, taps=4, delay=2)
@@ -74,7 +74,7 @@ def test_oracle_wpe_iterations_refine(rng):
 
 @pytest.mark.parametrize("shape", [(60, 9, 2), (40, 7, 4)])
 def test_jax_wpe_matches_oracle_c128(rng, shape):
-    from overiva_tpu import api
+    from overiva_jax import api
 
     T, F, M = shape
     X = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
@@ -85,7 +85,7 @@ def test_jax_wpe_matches_oracle_c128(rng, shape):
 
 
 def test_jax_wpe_c64_close_and_finite(rng):
-    from overiva_tpu import api
+    from overiva_jax import api
 
     X, _ = _ar_reverb_scene(rng, T=80, F=9, M=2)
     ref = oracle_wpe.wpe(X, taps=4, delay=2, n_iter=2)
@@ -96,7 +96,7 @@ def test_jax_wpe_c64_close_and_finite(rng):
 
 
 def test_wpe_batch_matches_single(rng):
-    from overiva_tpu import api
+    from overiva_jax import api
 
     Xs = [
         _ar_reverb_scene(rng, T=40, F=7, M=2)[0] for _ in range(3)
@@ -111,7 +111,7 @@ def test_wpe_batch_matches_single(rng):
 def test_wpe_then_separation_improves_reverberant_sir(rng):
     """End-to-end: on a strongly reverberant AR scene, WPE before AuxIVA
     must not break separation (output finite, dry-residual reduced)."""
-    from overiva_tpu import api
+    from overiva_jax import api
 
     X, D = _ar_reverb_scene(rng, T=100, F=17, M=2, strength=0.5)
     Y = api.wpe(X, taps=6, delay=2, n_iter=2, dtype=np.complex128,
@@ -123,7 +123,7 @@ def test_wpe_then_separation_improves_reverberant_sir(rng):
 
 
 def test_separate_fused_wpe_option(rng):
-    from overiva_tpu import api
+    from overiva_jax import api
 
     mix = rng.standard_normal((4000, 3)).astype(np.float64)
     y0 = api.separate(mix, n_src=3, nfft=256, n_iter=3)
@@ -140,7 +140,7 @@ def test_online_wpe_converges_to_batch_quality(rng):
     """Streaming WPE on a stationary AR scene: after the forgetting
     window fills, the per-block residual reverb approaches the batch
     solution's and is far below the raw input's."""
-    from overiva_tpu import api
+    from overiva_jax import api
 
     T, F, M = 360, 9, 2
     X, D = _ar_reverb_scene(rng, T=T, F=F, M=M, taps=3, delay=2)
@@ -166,7 +166,7 @@ def test_online_wpe_converges_to_batch_quality(rng):
 
 
 def test_online_wpe_validation():
-    from overiva_tpu import api
+    from overiva_jax import api
 
     with pytest.raises(ValueError):
         api.OnlineWPE(n_freq=9, n_chan=2, delay=0)
